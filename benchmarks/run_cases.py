@@ -27,8 +27,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def solve_one(im_func, kwargs, linear_solver="auto"):
-    from infiniteexamodels_jl_tpu.backend import ExaTranscriptionBackend
-    from infiniteexamodels_jl_tpu.solvers import IpmSolver
+    from infiniteexamodels_jax.backend import ExaTranscriptionBackend
+    from infiniteexamodels_jax.solvers import IpmSolver
 
     t0 = time.time()
     m = im_func(**kwargs)
@@ -60,7 +60,7 @@ def run_cases(name, im_func, kwarg_list, outdir, prerun=True):
     for kwargs in kwarg_list:
         out = solve_one(im_func, kwargs)
         row = {k: kwargs[k] for k in kw_keys}
-        row["framework"] = "InfiniteExaModelsTPU"
+        row["framework"] = "InfiniteExaModelsJAX"
         row.update(out)
         rows.append(row)
         print(row)
@@ -102,7 +102,11 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
 
-    from infiniteexamodels_jl_tpu import models as M
+    from infiniteexamodels_jax import models as M
+    from infiniteexamodels_jax.utils.compile_cache import (
+        use_compile_cache)
+
+    use_compile_cache()
 
     if args.model == "quad":
         kwargs = [dict(num_supports=int(s)) for s in args.sizes]

@@ -52,14 +52,18 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from infiniteexamodels_jl_tpu.models import pandemic  # noqa: E402
-from infiniteexamodels_jl_tpu.transcribe import transcribe  # noqa: E402
-from infiniteexamodels_jl_tpu.parallel import (  # noqa: E402
+from infiniteexamodels_jax.models import pandemic  # noqa: E402
+from infiniteexamodels_jax.transcribe import transcribe  # noqa: E402
+from infiniteexamodels_jax.parallel import (  # noqa: E402
     make_mesh, shard_model, sharded_fraction)
-from infiniteexamodels_jl_tpu.solvers.block_tridiag import (  # noqa: E402
+from infiniteexamodels_jax.solvers.block_tridiag import (  # noqa: E402
     BlockTridiagKKT)
-from infiniteexamodels_jl_tpu.solvers.scenario_shard import (  # noqa: E402
+from infiniteexamodels_jax.solvers.scenario_shard import (  # noqa: E402
     ShardedScenarioKKT)
+from infiniteexamodels_jax.utils.compile_cache import (  # noqa: E402
+    use_compile_cache)
+
+use_compile_cache()
 
 COLL = r"(all-reduce|all-gather|all-to-all|collective-permute|reduce-scatter)"
 

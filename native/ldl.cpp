@@ -3,8 +3,9 @@
 // Native CPU linear-solver component: plays the role MA27 (Fortran) plays
 // under Ipopt in the reference stack (README.md:36-41 of the reference) --
 // an in-process sparse symmetric factorization for the KKT systems.  The
-// TPU path uses the on-chip blocked factorizations; this library backs the
-// CPU reference/oracle path and provides exact inertia (sign counts of D).
+// accelerator path uses the structured block factorizations
+// (solvers/block_tridiag.py); this library backs the CPU reference/oracle
+// path and provides exact inertia (sign counts of D).
 //
 // Algorithm: classic up-looking LDL^T with elimination-tree pattern
 // computation (no pivoting).  Intended for quasidefinite / regularized KKT

@@ -20,15 +20,15 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from infiniteexamodels_jl_tpu.parallel import distributed  # noqa: E402
+from infiniteexamodels_jax.parallel import distributed  # noqa: E402
 
 distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
                        num_processes=nproc, process_id=pid)
 assert jax.device_count() == 4 * nproc, jax.device_count()
 
-from infiniteexamodels_jl_tpu.models import farmer  # noqa: E402
-from infiniteexamodels_jl_tpu.backend import ExaTranscriptionBackend  # noqa: E402
-from infiniteexamodels_jl_tpu.solvers import IpmSolver  # noqa: E402
+from infiniteexamodels_jax.models import farmer  # noqa: E402
+from infiniteexamodels_jax.backend import ExaTranscriptionBackend  # noqa: E402
+from infiniteexamodels_jax.solvers import IpmSolver  # noqa: E402
 
 mesh = distributed.global_mesh()
 m = farmer(num_scenarios=64)

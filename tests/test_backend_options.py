@@ -4,11 +4,11 @@ test/madnlp.jl:17-165) plus warm-start behavior (ipopt.jl:180-195)."""
 import numpy as np
 import pytest
 
-from infiniteexamodels_jl_tpu.modeling import (
+from infiniteexamodels_jax.modeling import (
     InfiniteModel, integral, deriv, sin)
-from infiniteexamodels_jl_tpu.backend import (
+from infiniteexamodels_jax.backend import (
     ExaTranscriptionBackend, NoOptimizerError)
-from infiniteexamodels_jl_tpu.solvers import IpmSolver, TerminationStatus
+from infiniteexamodels_jax.solvers import IpmSolver, TerminationStatus
 
 
 def five_by_five(solver=IpmSolver):
@@ -141,7 +141,7 @@ def test_checkpoint_resume(tmp_path):
     """IPM state checkpointing: a preempted solve resumes from disk and
     reaches the same answer (SURVEY.md §5 roadmap item; the reference has
     only in-memory warm restart)."""
-    from infiniteexamodels_jl_tpu.solvers.ipm import IpmSolver as S
+    from infiniteexamodels_jax.solvers.ipm import IpmSolver as S
 
     m, y, z = five_by_five()
     b = m.backend

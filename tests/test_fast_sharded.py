@@ -1,6 +1,6 @@
 """Fast-lane (non-slow) coverage of the headline distributed paths.
 
-VERDICT r4 item 7: the per-commit lane must exercise a full IPM solve
+The per-commit lane must exercise a full IPM solve
 through BOTH sharded KKT backends (scenario-block and time-band) and the
 mixed-precision step set, so regressions there are visible per-commit
 rather than only in the nightly slow lane.  Problems are kept tiny so the
@@ -9,11 +9,11 @@ rather than only in the nightly slow lane.  Problems are kept tiny so the
 import numpy as np
 import pytest
 
-from infiniteexamodels_jl_tpu.backend import ExaTranscriptionBackend
-from infiniteexamodels_jl_tpu.models import farmer, quad
-from infiniteexamodels_jl_tpu.parallel import make_mesh, shard_model
-from infiniteexamodels_jl_tpu.solvers import IpmSolver
-from infiniteexamodels_jl_tpu.transcribe import transcribe
+from infiniteexamodels_jax.backend import ExaTranscriptionBackend
+from infiniteexamodels_jax.models import farmer, quad
+from infiniteexamodels_jax.parallel import make_mesh, shard_model
+from infiniteexamodels_jax.solvers import IpmSolver
+from infiniteexamodels_jax.transcribe import transcribe
 
 
 def test_scenario_shard_full_solve_tiny():
@@ -39,7 +39,7 @@ def test_scenario_shard_full_solve_tiny():
 def test_band_shard_full_solve_tiny():
     """ShardedBandKKT (distributed BCR over time blocks) end-to-end on a
     small quadrotor matches the single-device objective."""
-    from infiniteexamodels_jl_tpu.solvers.band_shard import ShardedBandKKT
+    from infiniteexamodels_jax.solvers.band_shard import ShardedBandKKT
 
     m = quad(num_supports=24)
     model, _ = transcribe(m)

@@ -4,9 +4,9 @@ transform.jl:617-703)."""
 import numpy as np
 import pytest
 
-from infiniteexamodels_jl_tpu.modeling import (
+from infiniteexamodels_jax.modeling import (
     InfiniteModel, integral, expect, support_sum, uniform)
-from infiniteexamodels_jl_tpu.transcribe import transcribe
+from infiniteexamodels_jax.transcribe import transcribe
 
 
 def eval_objective(m):

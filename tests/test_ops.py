@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from infiniteexamodels_jl_tpu.ops import Core, Iterator, SRC, sin, abs2
+from infiniteexamodels_jax.ops import Core, Iterator, SRC, sin, abs2
 
 
 def build_toy():
@@ -142,8 +142,8 @@ def test_hvp_lag_matches_dense_hessian():
     refinement's exact-f64 reference, SimdModel.hvp_lag) must equal the
     densified hess_vals COO Hessian applied to the same vector, on a model
     with constraint AND objective curvature and slot aliasing."""
-    from infiniteexamodels_jl_tpu.models import quad
-    from infiniteexamodels_jl_tpu.transcribe import transcribe
+    from infiniteexamodels_jax.models import quad
+    from infiniteexamodels_jax.transcribe import transcribe
 
     m, _ = transcribe(quad(num_supports=7))
     rng = np.random.default_rng(0)

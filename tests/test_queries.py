@@ -4,11 +4,11 @@ duals (reference map_dual/variable_supports,
 import numpy as np
 import pytest
 
-from infiniteexamodels_jl_tpu.modeling import (
+from infiniteexamodels_jax.modeling import (
     InfiniteModel, OrthogonalCollocation, integral, deriv, All,
     InternalLabel, PublicLabel)
-from infiniteexamodels_jl_tpu.backend import ExaTranscriptionBackend
-from infiniteexamodels_jl_tpu.solvers import IpmSolver
+from infiniteexamodels_jax.backend import ExaTranscriptionBackend
+from infiniteexamodels_jax.solvers import IpmSolver
 
 
 def build_and_solve():

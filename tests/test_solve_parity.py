@@ -5,12 +5,12 @@ the reference's atol=1e-6."""
 import numpy as np
 import pytest
 
-from infiniteexamodels_jl_tpu.modeling import (
+from infiniteexamodels_jax.modeling import (
     InfiniteModel, OrthogonalCollocation, integral, deriv, sin,
     constant_over_collocation, DomainRestriction, All,
 )
-from infiniteexamodels_jl_tpu.backend import ExaTranscriptionBackend
-from infiniteexamodels_jl_tpu.solvers import IpmSolver
+from infiniteexamodels_jax.backend import ExaTranscriptionBackend
+from infiniteexamodels_jax.solvers import IpmSolver
 
 TOL = 1e-6
 
@@ -230,7 +230,7 @@ def test_start_value_updates_keep_ready():
 
 def test_expectation_measure():
     # E[ (v - xi)^2 ] over MC samples has closed-form optimum v = mean(xi)
-    from infiniteexamodels_jl_tpu.modeling import uniform, expect
+    from infiniteexamodels_jax.modeling import uniform, expect
 
     m = InfiniteModel(ExaTranscriptionBackend(IpmSolver), seed=7)
     xi = m.infinite_parameter("xi", dist=uniform(0.0, 1.0), num_supports=200)
@@ -244,7 +244,7 @@ def test_expectation_measure():
 
 
 def test_maximize_objective_sense():
-    from infiniteexamodels_jl_tpu.modeling import uniform, expect
+    from infiniteexamodels_jax.modeling import uniform, expect
 
     m = InfiniteModel(ExaTranscriptionBackend(IpmSolver), seed=1)
     xi = m.infinite_parameter("xi", dist=uniform(0.0, 2.0), num_supports=50)

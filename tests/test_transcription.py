@@ -6,11 +6,11 @@ domain-restriction filtering)."""
 import numpy as np
 import pytest
 
-from infiniteexamodels_jl_tpu.modeling import (
+from infiniteexamodels_jax.modeling import (
     InfiniteModel, OrthogonalCollocation, integral, deriv, sin, cos,
     DomainRestriction,
 )
-from infiniteexamodels_jl_tpu.transcribe import (
+from infiniteexamodels_jax.transcribe import (
     transcribe, OBJ_MEASURE_WARN, CON_MEASURE_WARN)
 
 

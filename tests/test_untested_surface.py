@@ -4,11 +4,11 @@ checkpoint-resume across a regularized stretch of the solve."""
 import numpy as np
 import pytest
 
-from infiniteexamodels_jl_tpu.backend import ExaTranscriptionBackend
-from infiniteexamodels_jl_tpu.modeling import (
+from infiniteexamodels_jax.backend import ExaTranscriptionBackend
+from infiniteexamodels_jax.modeling import (
     InfiniteModel, FiniteDifference, Forward, Central, integral, deriv)
-from infiniteexamodels_jl_tpu.solvers import IpmSolver
-from infiniteexamodels_jl_tpu.solvers.ipm import MadIpmSolver
+from infiniteexamodels_jax.solvers import IpmSolver
+from infiniteexamodels_jax.solvers.ipm import MadIpmSolver
 
 
 def _exp_decay_model(scheme):
@@ -61,7 +61,7 @@ def test_mad_ipm_solver_alias():
     """MadIpmSolver (the reference's MadNLP-role entry point,
     ext/InfiniteExaModelsMadNLP.jl) defaults to the structured KKT and
     reproduces the IpmSolver result."""
-    from infiniteexamodels_jl_tpu.models import hovercraft
+    from infiniteexamodels_jax.models import hovercraft
 
     m = hovercraft(num_supports=41)
     m.set_transformation_backend(ExaTranscriptionBackend(MadIpmSolver))
@@ -70,9 +70,9 @@ def test_mad_ipm_solver_alias():
     assert res.status == "first_order"
     assert m.objective_value() == pytest.approx(0.04245763849025232,
                                                 abs=1e-6)
-    from infiniteexamodels_jl_tpu.solvers.block_tridiag import (
+    from infiniteexamodels_jax.solvers.block_tridiag import (
         BlockTridiagKKT)
-    from infiniteexamodels_jl_tpu.solvers import DenseKKT
+    from infiniteexamodels_jax.solvers import DenseKKT
 
     assert isinstance(m.backend.solver.kkt, (BlockTridiagKKT, DenseKKT))
 
@@ -80,8 +80,8 @@ def test_mad_ipm_solver_alias():
 def test_ma27_linear_solver_alias():
     """linear_solver="ma27" routes to the native C++ LDL^T host path (the
     role MA27 plays under Ipopt in the reference stack)."""
-    from infiniteexamodels_jl_tpu.models import hovercraft
-    from infiniteexamodels_jl_tpu.solvers.cpp_ldl import CppLdlKKT
+    from infiniteexamodels_jax.models import hovercraft
+    from infiniteexamodels_jax.solvers.cpp_ldl import CppLdlKKT
 
     m = hovercraft(num_supports=31)
     m.set_transformation_backend(
@@ -95,10 +95,10 @@ def test_ma27_linear_solver_alias():
 def test_timers_split_compile_from_warm_steps():
     """ExecutionStats.timers reports the first jitted dispatch (compile +
     cache-miss cost) separately from the accumulated step time so callers
-    can report compile_s and warm iter/s as distinct metrics (VERDICT
-    round-1: solve_time must not conflate compile and solve)."""
-    from infiniteexamodels_jl_tpu.models import hovercraft
-    from infiniteexamodels_jl_tpu.transcribe import transcribe
+    can report compile_s and warm iter/s as distinct metrics (solve_time
+    must not conflate compile and solve)."""
+    from infiniteexamodels_jax.models import hovercraft
+    from infiniteexamodels_jax.transcribe import transcribe
 
     model, _ = transcribe(hovercraft(num_supports=31))
     res = IpmSolver(model, print_level=0, linear_solver="auto").solve()
@@ -110,8 +110,8 @@ def test_timers_split_compile_from_warm_steps():
 def test_checkpoint_without_log_fields_loads(tmp_path):
     """Checkpoints written before a diagnostic log field existed still
     load (missing fields default to zero)."""
-    from infiniteexamodels_jl_tpu.models import hovercraft
-    from infiniteexamodels_jl_tpu.transcribe import transcribe
+    from infiniteexamodels_jax.models import hovercraft
+    from infiniteexamodels_jax.transcribe import transcribe
 
     model, _ = transcribe(hovercraft(num_supports=31))
     s = IpmSolver(model, print_level=0, linear_solver="auto")
@@ -130,8 +130,8 @@ def test_checkpoint_without_log_fields_loads(tmp_path):
 def test_checkpoint_resume_mid_regularization(tmp_path):
     """Checkpoint taken while the solver is actively regularizing
     (delta_w_last > 0 in the saved state) resumes to the same optimum."""
-    from infiniteexamodels_jl_tpu.models import kinetic_control
-    from infiniteexamodels_jl_tpu.transcribe import transcribe
+    from infiniteexamodels_jax.models import kinetic_control
+    from infiniteexamodels_jax.transcribe import transcribe
 
     model, _ = transcribe(kinetic_control(num_supports=20))
     ref = IpmSolver(model, print_level=0, linear_solver="auto",
